@@ -3,7 +3,7 @@ tests/test_batch_plan.py.
 
 The plans are a pure function of (telemetry, wavelength grid, npsflin,
 cfg, chunk) — see ``muse_psfr_tpu.parallel.batch.plan_batch`` — so they
-are identical on CPU and TPU backends (the backend-resolved ``use_fft``
+are identical on every backend (the backend-resolved ``use_fft``
 base field cancels out of the per-group config deltas).  Run from the
 repo root after an INTENTIONAL planner change:
 

@@ -3,7 +3,7 @@
 The planner (`parallel/batch.py:_blue_split_plan`) runs the bluest
 wavelengths of each support bucket on a half-bucket window when the
 host admission model certifies it (ceiling analysis:
-benchmarks/measure_perlambda_window.py, recorded in RESULTS.md).  This
+benchmarks/measure_perlambda_window.py).  This
 measures the end-to-end effect with alternating reps in one process —
 the blue and plain group configs are distinct jit keys, so both
 executable sets stay warm — toggled via the MUSE_PSFR_NO_BLUE kill
@@ -15,7 +15,7 @@ Usage: python benchmarks/measure_blue_split.py plan [rows] [npsflin] \
               [reps] [npsflin]
 
 ``plan`` prints the groups the planner forms for the bench night
-(which nb/S_blue engaged, subgroup sizes) without touching the chip.
+(which nb/S_blue engaged, subgroup sizes) without touching the device.
 """
 import json
 import os

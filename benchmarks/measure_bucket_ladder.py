@@ -1,13 +1,14 @@
 """Host-side admission ladder for a third (mid-size) OTF-support bucket.
 
-The round-3 floor analysis estimated a third S=512 bucket could save
-~1/3 of the full-window rows' zoom cost — IF the full rows fit S=512.
-This script measures the actual admission: for each bench-night row,
+A third S=512 bucket could save part of the full-window rows' zoom
+cost — IF the full rows fit S=512.  This script measures the actual
+admission: for each bench-night row,
 the smallest 128-aligned window the host-side certifier
 (:func:`muse_psfr_tpu.parallel.batch.rows_windowable`) admits.
 
 Runs entirely on the host CPU backend (the certifier is the host-side
-zone model + fitting-PSD envelopes; no TPU, no pipeline compile).
+zone model + fitting-PSD envelopes; no accelerator, no pipeline
+compile).
 
 Usage: python benchmarks/measure_bucket_ladder.py [n_rows] [npsflin]
 """

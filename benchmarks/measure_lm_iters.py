@@ -1,7 +1,7 @@
 """LM iteration-count certification ladder for the Moffat fit stage.
 
 Question: can ``fit.moffat_fit.LM_ITERS`` (fixed scan length, 20) be
-lowered to shave the fit stage (~21% of a windowed npsflin=1 row)?
+lowered to shave the fit stage?
 
 Method: run ``_lm_solve`` with a patched iteration count on
 (a) the committed golden 35-lambda PSF cube and (b) a synthetic stress
@@ -10,14 +10,13 @@ grid spanning the realistic circular-Moffat range the pipeline fits
 1% noise, 131 planes total), and report the max parameter deviation
 against the converged (40-iteration) solution, per dtype.
 
-Measured answer (2026-08-19, CPU, x64 + f32 — committed so round 5
-does not re-explore): NOT converged by 10 — the stress planes
+Measured answer (CPU, x64 + f32 — committed so that it is not
+re-explored): NOT converged by 10 — the stress planes
 (broad/low-beta/off-centre) still move up to ~3.4 in beta at 6 iters,
 ~0.01 at 14, and ~1.4e-6 at 16, right at the fit contract's atol 1e-6
 (tests/test_oracle_parity.py).  20 reproduces 40 BIT-IDENTICALLY in
 f64 (f32 differences ~2e-5 are LM dithering at the f32 noise floor,
-not convergence).  Lowering to 16 would save only ~20% of the fit stage
-(~0.007 ms/row, ~2-3% night — inside the 5-8% chip spread) while
+not convergence).  Lowering to 16 would save at most a fifth of the fit stage while
 consuming the whole certification margin; a vmapped ``while_loop``
 early exit is no better because a night-scale batch almost surely
 contains a ~18-iteration plane and vmap runs the max lane count.

@@ -1,10 +1,7 @@
 """Timed npsflin=3 (9-direction) night with guard-trip visibility.
 
-Round 2 measured the 9-direction 100-row night at 277 rows/s while the
-stage profiles predicted ~3x more; hypothesis: a single window-guard
-trip re-ran the ENTIRE night full-window (the round-2 redo semantics).
-This script logs any guard warning and times the night under the
-round-3 surgical redo.
+Logs any window-guard warning (a trip redoes only the tripped chunks'
+rows with the full window) and times the night.
 
 Usage: python benchmarks/measure_npsflin3.py [rows] [chunk] [reps]
 """
@@ -20,7 +17,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 ROWS = int(sys.argv[1]) if len(sys.argv) > 1 else 100
-CHUNK = int(sys.argv[2]) if len(sys.argv) > 2 else 44  # one unpadded full-bucket chunk; 1.34x over 22 after the dir-block/row-split kernels (RESULTS.md)
+CHUNK = int(sys.argv[2]) if len(sys.argv) > 2 else 44  # one unpadded full-bucket chunk
 REPS = int(sys.argv[3]) if len(sys.argv) > 3 else 3
 NPSFLIN = int(os.environ.get("MUSE_PSFR_NPSFLIN", "3"))
 NL = 35
@@ -48,19 +45,10 @@ def main():
     logging.getLogger("muse_psfr.batch").addHandler(counter)
 
     cfg = GalacsiConfig()
-    # A/B knob: MUSE_PSFR_ANCHOR=1 engages the anchored-Taylor kernel
-    # (cfg.zoom_anchor="auto"); the default is the exact per-wavelength
-    # exp kernel (the anchor measured SLOWER end-to-end, 228 vs 268
-    # rows/s, 2026-08-17 — see RESULTS.md)
-    if os.environ.get("MUSE_PSFR_ANCHOR") == "1":
-        cfg = cfg.with_(zoom_anchor="auto")
-    elif os.environ.get("MUSE_PSFR_ANCHOR") == "0":
-        cfg = cfg.with_(zoom_anchor="off")
-    # A/B knob: MUSE_PSFR_LAMBDA_CHUNK overrides the fused-kernel
-    # wavelength chunk (cfg.pallas_lambda_chunk, default 12; VMEM still
-    # caps the full bucket at 7)
+    # A/B knob: MUSE_PSFR_LAMBDA_CHUNK overrides the wavelengths per OTF
+    # step (cfg.lambda_chunk)
     if os.environ.get("MUSE_PSFR_LAMBDA_CHUNK"):
-        cfg = cfg.with_(pallas_lambda_chunk=int(
+        cfg = cfg.with_(lambda_chunk=int(
             os.environ["MUSE_PSFR_LAMBDA_CHUNK"]))
     lbda = np.linspace(490, 930, NL)
     seeing, GL, L0, mask = build_rows(ROWS)

@@ -1,13 +1,11 @@
 """A/B measurement of the pull-tail overlap in ``process_batch``.
 
-The steady-state 1000-row night spends ~27% of its wall time in the one
-packed result pull, serialized after the last chunk (round-2 state).
-The overlap starts the device->host copy of each completed OTF-support
-bucket's packed fits while the next bucket computes, so most of the
-transfer hides under tail compute at the cost of one extra pull's
-~37 ms link latency.  This script times alternating on/off nights in
-one process (shared executables, shared chip state) and prints a JSON
-summary; RESULTS.md records the verdict.
+Without the overlap the packed result pull is serialized after the last
+chunk.  The overlap starts the device->host copy of each completed
+part's packed fits while later chunks compute, so most of the transfer
+hides under tail compute at the cost of one extra pull's latency.  This
+script times alternating on/off nights in one process (shared
+executables, shared device state) and prints a JSON summary.
 
 Usage: python benchmarks/measure_pull_overlap.py [rows] [chunk] [reps]
 """

@@ -1,8 +1,7 @@
 """A/B of the pull-part CUT SCHEDULE (MUSE_PSFR_PULL_AT).
 
-The long-night decomposition (RESULTS.md) shows the night's tail is the
-final packed pull: ~37 ms link latency + the BYTES of every chunk not
-yet covered by an async part.  The default stride schedule (first cut
+The night's tail is the final packed pull: a fixed latency + the BYTES
+of every chunk not yet covered by an async part.  The default stride schedule (first cut
 at part_n//2, then every part_n chunks) leaves a multi-chunk remainder
 — e.g. 4 of the 11 chunks of the 1000-row/chunk=100 night.  Cutting
 the last part near the end shrinks the remainder, at the price of a

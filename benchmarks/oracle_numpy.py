@@ -4,7 +4,7 @@ This module is an *independent* re-derivation of the algorithm implemented by
 the reference package (musevlt/muse-psfr, see /root/reference/muse_psfr/
 psfrec.py).  It exists for two purposes:
 
-1. Golden data: the TPU framework (``muse_psfr_tpu``) is validated
+1. Golden data: the JAX framework (``muse_psfr_tpu``) is validated
    stage-by-stage against this oracle, and the oracle itself is validated
    against the reference's published golden values
    (test_psfrec.py:121-128: FWHM 0.85/0.73/0.62, BETA 2.73/2.55/2.23 at

@@ -21,7 +21,6 @@ PAGES = [
     ("docs/usage.md", "usage.html", "Usage"),
     ("docs/precision.md", "precision.html", "Precision"),
     ("PARITY.md", "parity.html", "Reference parity"),
-    ("benchmarks/RESULTS.md", "benchmarks.html", "Benchmarks"),
     ("CHANGELOG.md", "changelog.html", "Changelog"),
 ]
 

@@ -1,15 +1,16 @@
-"""Process a night of SPARTA telemetry across SEVERAL HOSTS (DCN).
+"""Process a night of SPARTA telemetry across SEVERAL HOSTS.
 
-The batch layer shards telemetry rows over a global device mesh: within
-a slice over ICI, across hosts over DCN via ``jax.distributed`` —
+The batch layer shards telemetry rows over a global device mesh: across
+the devices of each host, and across hosts via ``jax.distributed`` —
 replacing the reference's single-node joblib process pool
 (psfrec.py:1082-1083) with SPMD execution.  Every process calls
 ``process_batch`` with the SAME full telemetry; each computes only its
 mesh shard, results are all-gathered, and every process returns the
 complete night.
 
-On a real multi-host deployment (e.g. a Cloud TPU pod), run one copy
-per host with the coordinator env prepared by the platform:
+On a real multi-host deployment (e.g. several GPU nodes), run one copy
+per host with the coordinator address, process count and process id
+passed to ``init_multihost``:
 
     python examples/multihost_night.py worker
 

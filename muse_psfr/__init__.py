@@ -1,4 +1,4 @@
-"""Drop-in import shim: ``import muse_psfr`` backed by the TPU framework.
+"""Drop-in import shim: ``import muse_psfr`` backed by the JAX framework.
 
 Exposes the reference package's public namespace (see
 ``muse_psfr_tpu.compat``) so existing code and scripts keep working.

@@ -1,4 +1,4 @@
-"""muse_psfr_tpu — TPU-native PSF reconstruction for MUSE WFM-AO.
+"""muse_psfr_tpu — accelerator-native PSF reconstruction for MUSE WFM-AO.
 
 A from-scratch JAX/XLA reimplementation of the capabilities of the
 ``muse-psfr`` package (GLAO PSF reconstruction from SPARTA seeing /
@@ -9,7 +9,7 @@ vmapped, mesh-shardable program; FITS I/O and the ``muse-psfr`` CLI are
 preserved exactly.
 """
 
-__version__ = "1.10.0"
+__version__ = "2.0.0"
 
 from .utils.log import setup_logging as _setup_logging
 

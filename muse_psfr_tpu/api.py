@@ -4,8 +4,8 @@ Drop-in equivalents of the reference package's public functions
 (``compute_psf``, ``compute_psf_from_sparta``; reference psfrec.py:933-1120)
 with identical FITS output layout (PRIMARY / SPARTA_ATM_DATA copy /
 FIT_ROWS / FIT_MEAN / PSF_MEAN), identical telemetry-validation semantics
-and log-message contract, and batched TPU execution replacing the joblib
-process pool.
+and log-message contract, and batched device execution replacing the
+joblib process pool.
 """
 
 import numpy as np

@@ -5,7 +5,7 @@ The reference package exports its whole module namespace
 against it can ``import muse_psfr`` and keep working — the ``muse_psfr``
 package shipped with this framework re-exports this module.  Each function
 keeps the reference's signature and output conventions (NumPy float64
-arrays, int pupil masks) while executing on the JAX/TPU core.
+arrays, int pupil masks) while executing on the JAX core.
 
 Reference citations are per function; reference source is
 ``muse_psfr/psfrec.py`` unless stated.
@@ -42,12 +42,12 @@ def _x64_context():
 
     The reference runs float64 end-to-end; this shim's parity contract is
     float64, but a fresh interpreter has ``jax_enable_x64`` off and JAX
-    silently truncates requested float64 arrays to float32.  On CPU (the
-    only backend with hardware float64 here) every compat computation runs
-    under an x64 scope; on TPU the float32 pipeline is used as-is
-    (documented precision: ~2e-6 rms, budget 1e-5).
+    silently truncates requested float64 arrays to float32.  On the CPU
+    and GPU backends (both have native float64) every compat computation
+    runs under an x64 scope; any other backend uses the float32 pipeline
+    as-is (documented precision: ~2e-6 rms, budget 1e-5).
     """
-    if jax.default_backend() != "cpu":
+    if jax.default_backend() not in ("cpu", "gpu"):
         return nullcontext()
     try:
         return jax.enable_x64(True)  # public scoped-x64 API (jax >= 0.4.26)

@@ -40,60 +40,10 @@ class GalacsiConfig:
     dimpsf: int = 40           # output PSF cube size [px]
     pixscale: float = 0.2      # output PSF pixel scale [arcsec/px]
     samp: float = 2.0          # PSF sampling (Nyquist)
-    lambda_chunk: int = 7      # wavelengths processed per OTF step: the
-                               # serial per-lambda loop underutilises the
-                               # chip (4.3x measured); each step holds
-                               # ~rows*lambda_chunk*ndir*dim^2 floats
-    pallas_lambda_chunk: int = 12  # wavelength chunk for the FUSED Pallas
-                               # zoom kernel (0 = use lambda_chunk).  The
-                               # kernel never materialises the OTF in HBM,
-                               # so the XLA-path memory bound above does
-                               # not apply — only the VMEM gate
-                               # (otf/psf.py:_pallas_lambda_chunk) caps it:
-                               # the dim=1280 full-window bucket still
-                               # runs at its VMEM-fit chunk 7, the reduced
-                               # windowed bucket at 12 (3 kernel launches
-                               # per 35-lambda cube instead of 5, pad 1).
-                               # Measured on TPU v5 lite (2026-08-17):
-                               # 12 -> windowed-kernel 5.5 vs 6.5
-                               # us/lambda and the 9-direction 100-row
-                               # night 309 vs 268 rows/s (1.16x); k=9
-                               # measured WORSE than both 7 and 12
-                               # (misaligned nl*m2 output tiling).
-    pallas_dir_block: object = "auto"  # directions per fused-kernel grid
-                               # step ("auto" = largest divisor of ndir
-                               # whose VMEM budget fits at the chosen
-                               # wavelength chunk; an int forces it; 0/1
-                               # disables).  db directions accumulate in
-                               # a LOCAL value before one scratch
-                               # read-modify-write (db-fold fewer), and
-                               # db == ndir drops the scratch entirely
-                               # and issues each wavelength's MXU
-                               # contraction right after its
-                               # exponentials (VPU/MXU overlap).
-                               # Measured (v5e, 2026-08-18,
-                               # measure_dir_block.py): windowed ndir=9
-                               # kernel 5.73 -> 3.80 us/lambda (1.51x)
-                               # at db=9; the full-window bucket stays
-                               # db=1 ("auto" rejects db>1 there: its
-                               # VMEM-fit chunk would drop 7 -> 5, a
-                               # measured per-lambda wash, and db=9
-                               # OOMs Mosaic even at k=2).  ndir=1
-                               # (npsflin=1): "auto" uses the
-                               # scratch-free immediate-contraction
-                               # body (bit-identical; the freed
-                               # scratch VMEM lets the FULL window run
-                               # the big wavelength chunk of 12 — 8.44
-                               # -> 7.83 us/lambda incl. the padding
-                               # lambda, measure_ndir1_body.py); an
-                               # explicit int/0 pins the legacy
-                               # scratch body + chunk 7.  NOTE:
-                               # "auto" also REPAIRS the dim=2048
-                               # full-window 9-direction shape, whose
-                               # old single-launch layout fails to
-                               # compile (RESULTS.md) — 0/int restores
-                               # that layout and with it the crash
-                               # at that one shape.
+    lambda_chunk: int = 7      # wavelengths processed per OTF step (a
+                               # serial per-wavelength loop leaves the
+                               # device underused); each step holds
+                               # ~rows*lambda_chunk*ndir*window floats
 
     # --- telemetry validity limits (reference psfrec.py:30-31) ------------
     min_l0: float = 8.0        # minimum valid outer scale [m]
@@ -102,48 +52,22 @@ class GalacsiConfig:
     # --- compute policy ----------------------------------------------------
     dtype: str = "float32"     # compute dtype for the heavy stages
     fit_dtype: str = "float32" # dtype of the Moffat LM solve
-    use_zoom_dft: bool = True  # zoom-DFT (MXU matmuls) instead of full IFFT
+    use_zoom_dft: bool = True  # zoom-DFT matmuls instead of a full IFFT
     use_fft: bool = True       # device FFTs for the structure function /
-                               # convolutions; False = MXU DFT-matmul +
-                               # direct-convolution path (exact, FFT-free —
-                               # also the fallback when the TPU runtime's
-                               # FFT custom call is unavailable)
-    matmul_precision: str = "highest"  # TPU f32 matmul passes for the OTF
-                               # transforms: "highest" = 6-pass (true f32,
-                               # 4.2e-8 rms vs the f64 oracle), "high" =
-                               # 3-pass bf16 (1.2e-6 rms, no measurable
-                               # pipeline speedup — the zoom stage is
-                               # HBM-bound), "default" = 1-pass bf16
-                               # (~1e-5 — fails the accuracy budget)
-    zoom_precision: str = "high"  # TPU f32 passes for the big zoom-DFT
-                               # contraction only (A2 @ OTF — 82% of the
-                               # post-split pipeline): "high" = 3-pass
-                               # bf16 (hi*hi + hi*lo + lo*hi), "highest" =
-                               # 6-pass true f32.  Measured (v5e, 300-row
-                               # night): 1069 vs 830 rows/s at rms
-                               # 2.6e-8 vs 2.2e-8 against the f64 oracle
-                               # (budget 1e-5) — "high" is the default
-    zoom_exp2: bool = True     # evaluate the fused-kernel damping as
-                               # exp2(alpha*log2e*D + log2 w) instead of
-                               # exp(alpha*D)*w: one fma + exp2 per
-                               # element instead of mul + exp + mul.
-                               # Identical math up to argument rounding
-                               # (~ln2*|exponent|*eps relative, i.e.
-                               # large only where the OTF has damped to
-                               # nothing).  Measured 1.05-1.13x on the
-                               # full-window ndir=9 kernel, ~1.02x full
-                               # ndir=1, a wash on windowed buckets
-                               # (benchmarks/measure_exp2_kernel.py);
-                               # pipeline rms unchanged vs the f64
-                               # oracle (docs/precision.md)
-    conv_precision: str = "highest"  # TPU f32 passes for the final-PSF
-                               # convolution DFT matmuls (tip-tilt +
-                               # instrument Moffat).  "high" (3-pass
-                               # bf16) measures ~2e-7 rms vs the f64
-                               # oracle (budget 1e-5) but its speedup is
-                               # inside the run-to-run variance — the
-                               # conv stage is ~0.09 ms/row of ~0.4 —
-                               # so full f32 stays the default
+                               # convolutions; False = DFT-matmul path
+                               # (exact, FFT-free; an explicit user
+                               # choice, never selected automatically on
+                               # a backend that has FFTs)
+    matmul_precision: str = "highest"  # precision of every float32 matmul
+                               # of the OTF/zoom transforms: "highest" =
+                               # true float32 (4.2e-8 rms vs the f64
+                               # oracle on CPU); "high"/"default" let
+                               # the backend use reduced-precision
+                               # passes (TF32 on NVIDIA GPUs), which
+                               # can exceed the 1e-5 rms budget
+    conv_precision: str = "highest"  # same, for the final-PSF
+                               # convolution DFT matmuls of the FFT-free
+                               # path (tip-tilt + instrument Moffat)
     use_dphi_split: bool = True  # linearity split of the structure
                                # function: the fitting-PSD transform is
                                # precomputed per config (Taylor basis in
@@ -228,121 +152,11 @@ class GalacsiConfig:
                                # tier is one more compiled executable,
                                # guarded by the same 4/3 score rule as
                                # the single-subgroup split; env override
-                               # MUSE_PSFR_BLUE_TIERS.  1 = the
-                               # round-4-measured single-subgroup plan;
-                               # 0 = AUTO: 2 tiers for multi-direction
-                               # runs (ndir >= 9 — measured 1.04 paired
-                               # median, 7/8 pairs, on the 9-direction
-                               # 1000-row night, healthy link,
-                               # measure_blue_tiers.py round 5; the
-                               # round-4 wash was link contention), 1
-                               # otherwise (single-direction nights are
-                               # pull/dispatch-bound and keep the
-                               # round-4 plans bit-identical).
-    zoom_anchor: str = "off"   # anchored-Taylor evaluation of the OTF
-                               # damping exp(alpha_l * Dphi_d) inside the
-                               # fused Pallas kernel: ONE anchor
-                               # exponential e^x per direction per
-                               # wavelength chunk (x = alpha* * Dphi_d,
-                               # alpha* the chunk's midpoint alpha) and
-                               # every wavelength reconstructed as
-                               # e^x * sum_j ((rho_l - 1) x)^j / j!
-                               # (rho_l = alpha_l/alpha*) — cutting the
-                               # VPU transcendentals per chunk pixel from
-                               # ndir*nl to ndir (63 -> 9 at npsflin=3).
-                               # "auto": the batch layer certifies the
-                               # analytic per-pixel OTF error bound
-                               # (otf/psf.py:zoom_anchor_bound) against
-                               # zoom_anchor_budget on the host and turns
-                               # it on only for multi-direction runs
-                               # (ndir >= zoom_anchor_min_ndir) on the
-                               # Pallas path; "on"/"off" force it.
-                               # Traced-lambda standalone calls see
-                               # "auto" as off (certification needs the
-                               # host-side wavelength grid).
-                               # DEFAULT OFF: measured a net LOSS on TPU
-                               # v5 lite (2026-08-17) — the 9-direction
-                               # 100-row night ran 228 vs 268 rows/s
-                               # (anchor deg8 vs exact), and the kernel
-                               # A/B shows the saved exponentials are
-                               # repaid with interest in VMEM scratch
-                               # read-modify-writes of the (degree+1)
-                               # power sums (7.9 vs 6.5 us/lambda
-                               # windowed, ~equal at best on the full
-                               # bucket across every certifiable
-                               # (chunk, degree)); see RESULTS.md
-                               # "anchored-Taylor" and
-                               # benchmarks/measure_anchor_kernel.py.
-    zoom_anchor_degree: int = 8   # Taylor degree of the per-wavelength
-                               # reconstruction; the certified bound at
-                               # the MUSE grid's worst (bluest) chunk is
-                               # ~5e-8 per OTF pixel (budget 1e-6)
-    zoom_anchor_budget: float = 1e-6  # max certified per-pixel OTF
-                               # abs-error bound for "auto" to engage
-    zoom_anchor_min_ndir: int = 4  # anchor sharing only wins when the
-                               # anchor exp amortises over directions:
-                               # at ndir=1 the per-lambda polynomial
-                               # costs more VPU work than the exp it
-                               # replaces (measured; RESULTS.md)
-    use_pallas: bool = True    # fused exp+zoom-DFT Pallas kernel (TPU
-                               # only, float32, dim % 128 == 0; silently
-                               # falls back to the XLA zoom path
-                               # otherwise).  Builds the direction-
-                               # averaged system OTF tile-wise in VMEM
-                               # (all wavelengths of a chunk, exp on the
-                               # VPU, zoom contraction on the MXU) so it
-                               # never hits HBM and the structure
-                               # function is read once per chunk; honours
-                               # the symmetry fold and support windows.
-    pallas_disc_skip: bool = False  # skip fused-kernel work outside the
-                               # pupil-autocorrelation (diffraction OTF)
-                               # support, where `G * dl` vanishes no
-                               # matter the damping: the full-window
-                               # slab's corner blocks, ~10% of its VPU
-                               # exp work, dropped by a static column-
-                               # group split of the kernel call
-                               # (otf/psf.py:_disc_block_mask,
-                               # ops/zoom_dft.py:fused_exp_zoom_disc;
-                               # certified <=1e-12 of the PSF peak).
-                               # MEASURED NEGATIVE end-to-end on TPU v5
-                               # lite (2026-08-17): the isolated kernel
-                               # wins 2-4% at ndir=9, but the night runs
-                               # ~5% SLOWER (291 vs 306 rows/s median,
-                               # 4/4 alternating reps) — the two extra
-                               # launches + the u-concatenation per
-                               # lambda chunk repay the savings
-                               # (benchmarks/measure_disc_skip.py).
-                               # Default off; the machinery stays for
-                               # chips/shapes where launch overhead is
-                               # smaller.  No-op on windows fully inside
-                               # the disc (the default windowed bucket).
-    use_pallas_conv: bool = True  # fused Pallas final-PSF convolution
-                               # chain (ops/conv_dft.py): both 'same'
-                               # convolutions + the middle crop in one
-                               # launch, wavelength planes lane-packed
-                               # (pallas_conv_pack) so every DFT matmul fills the
-                               # 128 lanes at the production L=64
-                               # transform size; the intermediate PSF
-                               # never exists in HBM.  TPU + float32 +
-                               # FFT-free mode only; falls back to the
-                               # XLA DFT path otherwise.
-    pallas_conv_pack: int = 3  # wavelength planes per fused-conv grid
-                               # step (lane-packing factor).  Measured
-                               # kernel-level on TPU v5 lite (2026-08-18,
-                               # us/row at the production shape, XLA
-                               # path 62.4): pack=2 41.2, pack=3 38.1
-                               # (best — 35 lambdas pack into 12 groups
-                               # with one padded plane), pack=4 42.1
-                               # (the block-diagonal right-multiply
-                               # matrices grow quadratically in pack and
-                               # repay the lane fill past 3).
-                               # benchmarks/measure_conv_kernel.py.
-    pallas_disc_min_ndir: int = 4  # engage the disc split only at
-                               # ndir >= this: the extra kernel launches
-                               # + small-group pipeline ramp cost ~20%
-                               # at ndir=1; at ndir=9 the isolated
-                               # kernel wins but the pipeline loses
-                               # (see pallas_disc_skip)
+                               # MUSE_PSFR_BLUE_TIERS.  1 = one blue
+                               # subgroup per bucket; 0 = AUTO: 2 tiers
+                               # for multi-direction runs (ndir >= 9,
+                               # where the exp area is largest), 1
+                               # otherwise.
 
     # --- derived ------------------------------------------------------------
     @property

@@ -35,9 +35,9 @@ def _same_fft_size(n_img: int, n_ker: int) -> int:
     kept window that alias vanishes as soon as off + L > n_img + n_ker
     - 2, i.e. L >= n_img + n_ker - 1 - off — EXACT, not approximate
     (verified to 6e-14 vs the full-size transform).  Rounded up to a
-    multiple of 8 (f32 sublane tile), never above the classical full
-    size.  Production dimpsf=40: L=64 instead of 80 -> 0.51x the
-    transform FLOPs on both the FFT and the DFT-matmul path.
+    multiple of 8, never above the classical full size.  Production
+    dimpsf=40: L=64 instead of 80 -> 0.51x the transform FLOPs on both
+    the FFT and the DFT-matmul path.
     """
     full = n_img + n_ker - 1
     lmin = full - (n_ker - 1) // 2
@@ -81,8 +81,8 @@ def _dft_mats(n: int, dtype):
 
 def _dft_spectra(x, nfft: int, precision="highest"):
     """(re, im) of the symmetric circular DFT ``W x W`` of zero-padded
-    ``x`` (nl, h, w) at size ``nfft`` — the kernel-spectrum half of
-    :func:`_dft_convolve_same`, shared with the fused Pallas chain."""
+    ``x`` (nl, h, w) at size ``nfft`` — the forward half of
+    :func:`_dft_convolve_same`."""
     dt = x.dtype
     c, s = _dft_mats(nfft, dt)
     mm = partial(jnp.matmul, precision=jax.lax.Precision(precision))
@@ -95,37 +95,25 @@ def _dft_spectra(x, nfft: int, precision="highest"):
 
 def _dft_convolve_same(planes, kernels, n_img: int, n_ker: int,
                        precision="highest"):
-    """'same' linear convolution via circular DFTs as real MXU matmuls.
+    """'same' linear convolution via circular DFTs as real matmuls.
 
-    Bit-path for FFT-free backends: identical maths to
+    The FFT-free path (``use_fft=False``): identical maths to
     :func:`_fft_convolve_same` (circular product at the minimal
     alias-free size, exact on the 'same' window) with every transform
-    expressed as dense (nfft, nfft) matmuls — MXU work, where a grouped
-    direct convolution (contraction size 1 per group) leaves the
-    systolic array idle.
+    expressed as dense (nfft, nfft) matmuls.
 
     With W symmetric, F = W X W splits into 6 real matmuls per transform;
     the inverse needs only the real part of the output, 6 more.
-    ``precision`` follows ``cfg.conv_precision``: these matmuls act on
-    the final 40^2 PSF (values O(1), contraction length <= 80), where
-    the 3-pass bf16 tier costs ~1e-7 absolute — far inside the 1e-5
-    budget.
-
-    The transform runs at the minimal alias-free size
-    (:func:`_same_fft_size`; 64 not 80 at production dimpsf) — exact,
-    0.51x the FLOPs, measured 1.38x on the conv stage at pipeline
-    shapes.  (Folding the plane batch into the matmul free dimension to
-    fill the 128 lanes was measured SLOWER under the row vmap — the
-    layout transposes it needs don't fold away: 0.069 vs 0.063 ms/row —
-    and is not used.)
+    ``precision`` follows ``cfg.conv_precision``.  The transform runs
+    at the minimal alias-free size (:func:`_same_fft_size`; 64 not 80
+    at production dimpsf) — exact, 0.51x the FLOPs.
     """
     nfft = _same_fft_size(n_img, n_ker)
     dt = planes.dtype
     c, s = _dft_mats(nfft, dt)
     mm = partial(jnp.matmul, precision=jax.lax.Precision(precision))
 
-    # forward transforms shared with the Pallas kernel-spectrum path —
-    # one home for the pad + 6-matmul W x W scheme (_dft_spectra)
+    # forward transforms: the pad + 6-matmul W x W scheme
     fr, fi = _dft_spectra(planes, nfft, precision)
     gr, gi = _dft_spectra(kernels, nfft, precision)
     hr = fr * gr - fi * gi
@@ -142,9 +130,8 @@ def _direct_convolve_same(planes, kernels, n_img: int, n_ker: int):
     """'same' linear convolution as a grouped direct convolution.
 
     Same numbers as :func:`_fft_convolve_same` to rounding.  Kept as a
-    reference backend ( :func:`_dft_convolve_same` is the production
-    FFT-free path — the grouped convolution's per-group contraction size
-    of 1 cannot use the MXU and measured ~60x slower at pipeline sizes).
+    reference backend for tests (:func:`_dft_convolve_same` is the
+    FFT-free pipeline path).
     Each wavelength plane gets its own kernel via ``feature_group_count``.
     True convolution (kernel flipped) to match scipy.signal.fftconvolve
     semantics.
@@ -199,24 +186,6 @@ def convolve_final(psf, lbda_nm, seeing, GL, L0, cfg: GalacsiConfig):
     fwhm_i, beta_i, _, _ = muse_intrinsic_psf(lbda_nm.astype(dtype))
     alpha_i = moffat_fwhm_to_alpha(fwhm_i / cfg.pixscale, beta_i)
     k_i = _batched_kernels(alpha_i, beta_i, n_ker, dtype)
-
-    if (not cfg.use_fft and cfg.use_pallas_conv
-            and cfg.dtype == "float32"
-            and jax.default_backend() == "tpu"):
-        # fused Pallas chain: both convolutions + the middle crop in
-        # VMEM, planes lane-packed in groups of cfg.pallas_conv_pack
-        # (ops/conv_dft.py).  The
-        # kernel spectra stay in XLA: the intrinsic set is
-        # row-independent (hoisted out of the row vmap), the tip-tilt
-        # one is a single kernel per row.
-        from ..ops.conv_dft import fused_conv_chain
-        nfft = _same_fft_size(n_img, n_ker)
-        gtt_r, gtt_i = _dft_spectra(k_tt[None], nfft, cfg.conv_precision)
-        gi_r, gi_i = _dft_spectra(k_i, nfft, cfg.conv_precision)
-        return fused_conv_chain(psf, gtt_r[0], gtt_i[0], gi_r, gi_i,
-                                n_img, n_ker,
-                                precision=cfg.conv_precision,
-                                pack=cfg.pallas_conv_pack)
 
     psf = conv(psf, k_tt[None], n_img, n_ker)
     return conv(psf, k_i, n_img, n_ker)

@@ -1,10 +1,11 @@
-"""Device-mesh helpers: single-host ICI meshes and multi-host DCN setup.
+"""Device-mesh helpers: single-host meshes and multi-host setup.
 
 The workload's only parallel axis is data parallelism over telemetry work
 items (SURVEY.md §5): there is no sequence/tensor dimension worth
-splitting (a 2048^2 complex64 FFT fits trivially in one chip's HBM), so
-scaling is a 1-D mesh over rows — within a slice over ICI, across hosts
-over DCN via ``jax.distributed``.
+splitting (a 2048^2 complex64 FFT fits easily in one device's memory),
+so scaling is a 1-D mesh over rows — across the devices of one host
+(all-to-all NVLink on a multi-GPU node), and across hosts via
+``jax.distributed``.
 """
 
 import numpy as np
@@ -27,13 +28,14 @@ def rows_sharding(mesh):
 
 def init_multihost(coordinator_address=None, num_processes=None,
                    process_id=None):
-    """Initialise multi-host execution (one process per host, DCN).
+    """Initialise multi-host execution (one process per host).
 
     Call once at program start on every host, then build the global mesh
     with :func:`default_mesh` — ``jax.devices()`` spans all hosts
-    afterwards and the batch layer shards rows globally.  Arguments are
-    optional when running under an environment that auto-configures
-    ``jax.distributed`` (e.g. Cloud TPU Pods).
+    afterwards and the batch layer shards rows globally.  Pass the
+    coordinator address (``host:port`` of process 0), the process count
+    and this process's id; they may be omitted only under a cluster
+    environment that ``jax.distributed`` configures itself from.
     """
     kwargs = {}
     if coordinator_address is not None:

@@ -1,6 +1,6 @@
 """GLAO residual-phase PSD model (JAX).
 
-TPU-native reformulation of the reference's PSD layer
+Batched JAX reformulation of the reference's PSD layer
 (``calc_mat_rec_glao_finale`` psfrec.py:218-364, ``calc_dsp_res_glao_finale``
 367-528, ``dsp4muse`` 531-613, ``simul_psd_wfm`` 36-151):
 
@@ -135,7 +135,9 @@ def residual_psd_one_dir(f, f_x, f_y, poslgs_amin, gs_mask, beta_amin, sigv,
     p_dm = jnp.exp(2j * np.pi * h_dm * ARCMIN_TO_RAD * bdot)
 
     p_w = p_dm[None] * W                                        # (g, s, s)
-    p_model = jnp.einsum("gxy,lgxy->lxy", p_w, Mv)
+    # guide-star sum as elementwise adds (a dot over 3-4 guide stars
+    # could run at reduced matmul precision on an accelerator)
+    p_model = jnp.sum(p_w[None] * Mv, axis=1)
     proj = p_beta - p_model
 
     err_recons = jnp.sum(jnp.abs(proj) ** 2 * dsp_layers, axis=0)
@@ -297,6 +299,13 @@ def _glao_static_transfer(h, wind_speed, npsflin, cfg: GalacsiConfig):
     return out
 
 
+def _layer_sum(x, cn2):
+    """``sum_l cn2[l] * x[l]`` over the two turbulent layers, as
+    elementwise adds: exact float32 on every backend, where a dot over
+    the layer axis could run at reduced matmul precision."""
+    return jnp.sum(cn2[:, None, None, None] * x, axis=0)
+
+
 def _glao_block_psd(seeing, GL, L0, gs_mask, h, wind_speed,
                     npsflin: int, cfg: GalacsiConfig, zenith=0.0):
     """Correction-zone GLAO residual PSD (ndir, s, s) [rad^2] and r0."""
@@ -318,8 +327,7 @@ def _glao_block_psd(seeing, GL, L0, gs_mask, h, wind_speed,
             # the noise term are float64 precomputed constants
             proj2 = jnp.asarray(const["proj2_" + tag], dtype)
             noise = jnp.asarray(const["noise_" + tag], dtype)
-            err = jnp.einsum("ldxy,l->dxy", proj2 * radial[None, None], cn2)
-            return err + noise
+            return _layer_sum(proj2 * radial[None, None], cn2) + noise
         # MAP: the prior enters the per-frequency inversion through the
         # telemetry (r0, L0), so the scalar field inv = 1/(D0 + Cphi^-1)
         # is traced; |proj|^2 = |1 - P*inv|^2 with P precomputed
@@ -334,7 +342,7 @@ def _glao_block_psd(seeing, GL, L0, gs_mask, h, wind_speed,
         re = 1.0 - jnp.asarray(const["p_re_" + tag], dtype) * inv
         im = jnp.asarray(const["p_im_" + tag], dtype) * inv
         proj2 = re * re + im * im                           # (l, ndir, s, s)
-        err = jnp.einsum("ldxy,l->dxy", proj2 * radial[None, None], cn2)
+        err = _layer_sum(proj2 * radial[None, None], cn2)
         return (err + d0 * inv * inv) * dc
 
     # the two reference geometries (psfrec.py:86-91); the mask's 4th entry

@@ -42,8 +42,8 @@ def test_bench_pinned_row_is_blue_admitted_and_golden(monkeypatch):
     nb, sb = g0.cfg.otf_blue
     assert sb < g0.cfg.otf_support or g0.cfg.otf_support == 0
 
-    # reconstruct the row WITH that group config (float32, the TPU
-    # default dtype) and pin against the committed float64 oracle
+    # reconstruct the row WITH that group config (float32, the
+    # production dtype) and pin against the committed float64 oracle
     cube = reconstruct_batch(seeing[:1], GL[:1], L0[:1], mask[:1], lb,
                              cfg=g0.cfg, chunk=1)[0]
     golden = np.load(GOLDEN)

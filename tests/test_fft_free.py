@@ -1,5 +1,5 @@
-"""The FFT-free (MXU DFT-matmul + direct-convolution) execution mode is
-exact against the FFT path."""
+"""The FFT-free (DFT-matmul + direct-convolution) execution mode is
+exact against the FFT path; the FFT decision per backend."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -49,6 +49,35 @@ def test_resolve_fft_mode_on_cpu():
     assert fft_available()  # CPU backend always has FFTs
     cfg = GalacsiConfig()
     assert resolve_fft_mode(cfg) is cfg
+
+
+@pytest.mark.parametrize("backend,has_fft", [
+    ("cpu", True), ("gpu", True), ("neuron", False), ("metal", False)])
+def test_fft_mode_decided_from_backend_alone(monkeypatch, caplog, backend,
+                                             has_fft):
+    """The decision reads the backend's name and nothing else: no probe
+    program, no second process; a downgrade is logged, never silent."""
+    import logging
+    import subprocess
+    from muse_psfr_tpu.parallel import batch as B
+
+    def no_subprocess(*a, **k):
+        raise AssertionError("the FFT decision must not start a process")
+
+    monkeypatch.setattr(subprocess, "run", no_subprocess)
+    monkeypatch.setattr(subprocess, "Popen", no_subprocess)
+    monkeypatch.setattr(B.jax, "default_backend", lambda: backend)
+    assert B.fft_available() is has_fft
+    cfg = GalacsiConfig(use_zoom_dft=False)
+    with caplog.at_level(logging.WARNING):
+        out = B.resolve_fft_mode(cfg)
+    if has_fft:
+        assert out is cfg
+        assert not caplog.records
+    else:
+        assert out.use_fft is False and out.use_zoom_dft is True
+        assert any("no FFT support" in r.getMessage()
+                   for r in caplog.records)
 
 
 def test_dft_convolve_matches_fft_and_direct_backends():

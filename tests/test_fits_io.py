@@ -3,6 +3,7 @@
 import io
 
 import numpy as np
+import pytest
 from numpy.testing import assert_allclose, assert_array_equal
 
 from muse_psfr_tpu.io.fits import (HDUList, PrimaryHDU, ImageHDU,
@@ -59,8 +60,20 @@ def test_bintable_vector_columns_roundtrip():
 
 
 def test_reads_idl_written_reference_data():
-    """The codec must read the IDL-written coeffL0 table from 2018."""
-    hdul = fits_open("/root/reference/muse_psfr/coeffL0.fits")
+    """The codec must read the IDL-written coeffL0 table from 2018.
+
+    The table ships with the reference ``muse-psfr`` checkout, named by
+    ``$MUSE_PSFR_REFERENCE_DIR``; the test skips where that is unset or
+    holds no table."""
+    import os
+    ref = os.environ.get("MUSE_PSFR_REFERENCE_DIR")
+    if not ref:
+        pytest.skip("MUSE_PSFR_REFERENCE_DIR (a reference muse-psfr "
+                    "checkout) is not set")
+    path = os.path.join(ref, "muse_psfr", "coeffL0.fits")
+    if not os.path.exists(path):
+        pytest.skip(f"reference muse-psfr checkout not found ({path})")
+    hdul = fits_open(path)
     data = hdul[0].data
     assert data.shape == (2, 200)
     assert_allclose(data[0][:3], [1, 2, 3])

@@ -63,7 +63,8 @@ def test_psf_and_convolve_vs_oracle():
 
 
 def test_float32_psf_close_to_float64():
-    """Bound the float32 (TPU default) drift of the final PSF cube."""
+    """Bound the float32 (production default) drift of the final PSF
+    cube."""
     cfg32 = GalacsiConfig(dtype="float32", fit_dtype="float32")
     psd64 = simulate_psd(1.0, 0.7, 25.0, jnp.ones(4),
                          jnp.array([100.0, 10000.0]), 12.0, 1, CFG64)

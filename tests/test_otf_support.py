@@ -877,7 +877,7 @@ def test_blue_tiers_env_clamped(monkeypatch):
     """MUSE_PSFR_BLUE_TIERS / cfg.blue_tiers are clamped to <=4 so the
     C(menu, tiers) ladder enumeration stays bounded (ADVICE r4), and
     the 0=auto default resolves by direction count (2 for ndir>=9,
-    measured 1.04 paired on the 9-direction night; 1 otherwise)."""
+    1 otherwise)."""
     from muse_psfr_tpu.parallel.batch import _blue_tiers
     monkeypatch.setenv("MUSE_PSFR_BLUE_TIERS", "100")
     assert _blue_tiers(BLUE_CFG) == 4

@@ -92,7 +92,7 @@ def test_standalone_transforms_decide_crop_on_host(monkeypatch):
     must decide the crop sizes on the HOST (float64) — they used to be
     fully jitted, so wavelengths were always traced inside and the f32
     fallback silently took over (invisible on CPU where x64 is on, but
-    the .5-boundary bug on TPU; see
+    the .5-boundary bug on a float32 accelerator; see
     test_lambda_crop_half_boundary_decided_in_float64)."""
     import jax
     import muse_psfr_tpu.otf.psf as P

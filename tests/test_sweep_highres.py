@@ -43,9 +43,7 @@ def test_highres_2048_mode():
 def test_highres_2048_night_plan():
     """The full planner stack drives dim=2048 at night scale (VERDICT
     r4 item 4): support buckets at S=512, blue sub-windows at 256/512,
-    tail menu and VMEM-model chunk policy all engage, every row lands
-    exactly once, and the measured night ran on the real chip
-    (benchmarks/RESULTS.md round-5 row: 0.123 s best / 100 rows)."""
+    and the tail menu all engage, and every row lands exactly once."""
     import sys, os
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))

@@ -181,43 +181,3 @@ def test_plot_directions_smoke():
     labels = [t.get_text() for t in ax.get_legend().get_texts()]
     assert any("LGS" in t for t in labels)
     assert any("direction" in t.lower() for t in labels)
-
-
-def test_chunk_compile_hint():
-    """Remote-compile helper crashes re-raise with the chunk-size hint;
-    unrelated errors pass through unchanged."""
-    import pytest
-    from muse_psfr_tpu.parallel.batch import _chunk_compile_hint
-
-    import numpy as np
-
-    for marker in ("remote_compile", "tpu_compile_helper"):
-        err = RuntimeError(f"INTERNAL: http://x/{marker}: HTTP 500")
-        try:
-            raise err
-        except RuntimeError as caught:
-            with pytest.raises(RuntimeError, match="chunk <= 100"):
-                _chunk_compile_hint(caught, 132)
-            # numpy integer chunks (from numpy arithmetic) get the same
-            # advice — isinstance(int) would miss them
-            with pytest.raises(RuntimeError, match="chunk <= 100"):
-                _chunk_compile_hint(caught, np.int64(132))
-
-    # a chunk already in the known-good range must NOT be advised to
-    # shrink below 100 (the size is provably not the known cause there —
-    # e.g. a transient service 500, or an oversized dim=2048 program)
-    err = RuntimeError("INTERNAL: http://x/remote_compile: HTTP 500")
-    try:
-        raise err
-    except RuntimeError as caught:
-        with pytest.raises(RuntimeError) as exc:
-            _chunk_compile_hint(caught, 50)
-        assert "chunk <= 100" not in str(exc.value)
-        assert "chunk=50" in str(exc.value)
-
-    other = ValueError("unrelated")
-    try:
-        raise other
-    except ValueError as caught:
-        with pytest.raises(ValueError, match="unrelated"):
-            _chunk_compile_hint(caught, 50)
